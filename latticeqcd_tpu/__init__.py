@@ -1,4 +1,4 @@
-"""TPU-native lattice QCD sampling engine.
+"""Lattice QCD sampling engine in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 LatticeQCD.jl (akio-tomiya/LatticeQCD.jl) and its satellite packages
@@ -7,7 +7,7 @@ Wilsonloop.jl): SU(N) gauge fields with general loop-based actions,
 heatbath + overrelaxation, quenched and dynamical HMC (Wilson,
 staggered, domain-wall), staggered RHMC, stout smearing, gradient
 flow, the full measurement suite, and ILDG / Bridge++-text / native
-config I/O, sharded over TPU meshes with halo exchange via XLA
+config I/O, sharded over device meshes with halo exchange via XLA
 collectives.
 
 Top-level API mirrors the reference facade

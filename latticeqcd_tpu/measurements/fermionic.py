@@ -53,7 +53,7 @@ def _solve_dinv_multi(dirac, up, b, eps, maxiter, deflate_k=0):
     operator is vmapped over the RHS axis so the HBM-bound Dirac
     mat-vec reads the link field once per batch instead of once per
     source (PERF.md roofline — links are ~3/5 of D-slash traffic), the
-    TPU-native answer to the reference's sequential NC*Nspinor
+    batched answer to the reference's sequential NC*Nspinor
     measurement inversions (measure_Pion_correlator.jl:333-409); on
     CPU a sequential lax.scan of single-RHS CGs measures 1.40x faster
     (cache-resident working set, per-RHS early exit).

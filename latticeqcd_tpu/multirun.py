@@ -1,21 +1,22 @@
 """Multi-device / multi-host entry:
 
     python -m latticeqcd_tpu.multirun params.toml [PE1 PE2 PE3 PE4] \
-        [--coordinator host:port --nprocs N --procid I]
+        [--cpu] [--coordinator host:port --nprocs N --procid I]
 
 Counterpart of src/mpirun.jl (SURVEY.md layer L7;
 /root/reference/src/mpirun.jl:14-25) — but instead of MPI ranks the
 4-vector PEs selects the jax device-mesh layout; the link field is
 sharded over the mesh and every jitted step runs SPMD with XLA
-collectives over ICI (SURVEY.md 2.5).
+collectives (NCCL over NVLink between the GPUs of one host;
+SURVEY.md 2.5).
 
-Multi-host (the `mpirun -np N` analog): launch one copy of this
-process per host. On TPU pods no flags are needed —
-jax.distributed.initialize auto-detects the pod; elsewhere pass
---coordinator/--nprocs/--procid explicitly. The driver loop is
-replicated on every process exactly like the reference's
-rank-replicated driver; logging, measurement files and config saves
-are rank-0 gated.
+One process drives every GPU of its host, so a single-host run needs
+no flags. Several hosts (the `mpirun -np N` analog): launch one copy
+of this process per host with --coordinator/--nprocs/--procid. The
+driver loop is replicated on every process exactly like the
+reference's rank-replicated driver; logging, measurement files and
+config saves are rank-0 gated. --cpu runs on the host's CPU devices
+instead of GPUs.
 """
 
 import sys
@@ -28,7 +29,7 @@ def main(argv=None):
     coordinator = None
     nprocs = None
     procid = None
-    multihost = False
+    force_cpu = False
     pos = []
     it = iter(argv)
     for a in it:
@@ -38,23 +39,31 @@ def main(argv=None):
             nprocs = int(next(it))
         elif a == "--procid":
             procid = int(next(it))
-        elif a == "--multihost":
-            multihost = True  # auto-detect (TPU pod env)
+        elif a == "--cpu":
+            force_cpu = True
         else:
             pos.append(a)
     if len(pos) not in (1, 5):
         print(
             "usage: python -m latticeqcd_tpu.multirun <params.toml> "
-            "[PE1 PE2 PE3 PE4] [--coordinator host:port --nprocs N --procid I]"
+            "[PE1 PE2 PE3 PE4] [--cpu] [--coordinator host:port --nprocs N --procid I]"
         )
         return 2
 
-    from latticeqcd_tpu.parallel import initialize_multihost
-
-    if coordinator is not None or nprocs is not None or multihost:
-        initialize_multihost(coordinator, nprocs, procid)
-
     import jax
+
+    from latticeqcd_tpu.parallel import initialize_multihost
+    from latticeqcd_tpu.utils.compile_cache import configure_compile_cache
+
+    if force_cpu:
+        jax.config.update("jax_platforms", "cpu")
+    if coordinator is not None or nprocs is not None:
+        initialize_multihost(coordinator, nprocs, procid)
+    if not force_cpu and jax.default_backend() != "gpu":
+        print(f"no GPU found (JAX backend {jax.default_backend()!r}); "
+              "pass --cpu to run on the host CPU", file=sys.stderr)
+        return 2
+    configure_compile_cache()
     jax.config.update("jax_enable_x64", True)
 
     from latticeqcd_tpu.parallel import (

@@ -28,7 +28,7 @@ import numpy as np
 
 from latticeqcd_tpu.ops.dirac import gammas
 
-from latticeqcd_tpu.ops import rolls
+from latticeqcd_tpu.ops import dots, rolls
 
 DIRS = 4
 
@@ -67,14 +67,14 @@ class DomainwallDirac:
         hop = 0.0
         for mu in range(DIRS):
             umu = u[mu]  # (X,Y,Z,T,a,b) broadcasts over the leading L5 axis
-            fwd = jnp.einsum("...ab,l...sb->l...sa", umu, _shift4(psi, mu, +1))
-            bwd = jnp.einsum(
+            fwd = dots.einsum("...ab,l...sb->l...sa", umu, _shift4(psi, mu, +1))
+            bwd = dots.einsum(
                 "...ba,l...sb->l...sa",
                 jnp.conj(rolls.roll(umu, 1, axis=mu)),
                 _shift4(psi, mu, -1),
             )
-            hop = hop + jnp.einsum("st,l...tc->l...sc", pm[mu], fwd)
-            hop = hop + jnp.einsum("st,l...tc->l...sc", pp[mu], bwd)
+            hop = hop + dots.einsum("st,l...tc->l...sc", pm[mu], fwd)
+            hop = hop + dots.einsum("st,l...tc->l...sc", pp[mu], bwd)
         return out - 0.5 * hop
 
     def apply(self, u: jnp.ndarray, psi: jnp.ndarray) -> jnp.ndarray:
@@ -138,8 +138,8 @@ class DomainwallDirac:
     # (fermion_action.py WilsonFermiAction). The L5 axis stays local
     # (SURVEY.md 7.4): A^-1 is a pair of precomputed L5 x L5 matrices
     # (one per chirality, since A = P+ (d - S-) + P- (d - S+) with
-    # diagonal gamma5), applied as a site-local einsum — MXU-friendly,
-    # no solver inside the operator.
+    # diagonal gamma5), applied as a site-local einsum — no solver
+    # inside the operator.
     # ------------------------------------------------------------------
 
     def _chiral_masks(self, psi):
@@ -172,7 +172,7 @@ class DomainwallDirac:
         pp, pm = self._chiral_masks(psi)
         mp = jnp.asarray(m_plus, dtype=psi.dtype)
         mm = jnp.asarray(m_minus, dtype=psi.dtype)
-        return pp * jnp.einsum("lk,k...->l...", mp, psi) + pm * jnp.einsum(
+        return pp * dots.einsum("lk,k...->l...", mp, psi) + pm * dots.einsum(
             "lk,k...->l...", mm, psi
         )
 
@@ -233,11 +233,11 @@ class DomainwallDirac:
         for mu in range(DIRS):
             g_plus = jax.vmap(lambda f, m=mu: eo_pack.gather_plus(f, m, s_t))
             g_minus = jax.vmap(lambda f, m=mu: eo_pack.gather_minus(f, m, s_t))
-            fwd = jnp.einsum("...ab,l...sb->l...sa", u_t[mu], g_plus(psi_p))
+            fwd = dots.einsum("...ab,l...sb->l...sa", u_t[mu], g_plus(psi_p))
             u_m = eo_pack.gather_minus(u_s[mu], mu, s_t)
-            bwd = jnp.einsum("...ba,l...sb->l...sa", jnp.conj(u_m), g_minus(psi_p))
-            hop = hop + jnp.einsum("st,l...tc->l...sc", pm[mu], fwd)
-            hop = hop + jnp.einsum("st,l...tc->l...sc", pp[mu], bwd)
+            bwd = dots.einsum("...ba,l...sb->l...sa", jnp.conj(u_m), g_minus(psi_p))
+            hop = hop + dots.einsum("st,l...tc->l...sc", pm[mu], fwd)
+            hop = hop + dots.einsum("st,l...tc->l...sc", pp[mu], bwd)
         return -0.5 * hop
 
     def apply_schur(self, u_eo, phi_e: jnp.ndarray, dag: bool = False) -> jnp.ndarray:

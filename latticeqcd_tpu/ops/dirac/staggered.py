@@ -25,7 +25,7 @@ import numpy as np
 
 from latticeqcd_tpu.ops.dirac import eo_pack
 
-from latticeqcd_tpu.ops import rolls
+from latticeqcd_tpu.ops import dots, rolls
 
 DIRS = 4
 
@@ -66,8 +66,8 @@ class StaggeredDirac:
         out = 0.0
         for mu in range(DIRS):
             umu = u[mu]
-            fwd = jnp.einsum("...ab,...b->...a", umu, _shift(psi, mu, +1))
-            bwd = jnp.einsum(
+            fwd = dots.einsum("...ab,...b->...a", umu, _shift(psi, mu, +1))
+            bwd = dots.einsum(
                 "...ba,...b->...a", jnp.conj(_shift(umu, mu, -1)), _shift(psi, mu, -1)
             )
             out = out + 0.5 * eta[mu][..., None] * (fwd - bwd)
@@ -101,7 +101,7 @@ class StaggeredDirac:
     #
     # The solver/HMC hot loop works on even-supported fields only; the
     # masked apply_w_even above still streams full-volume arrays, i.e.
-    # 2x the HBM traffic and MXU work actually needed. Everything in
+    # 2x the memory traffic and arithmetic actually needed. Everything in
     # the CG iteration runs on V/2-site packed arrays instead.
     # ------------------------------------------------------------------
 
@@ -125,10 +125,10 @@ class StaggeredDirac:
         eta_t = self._packed_eta(target_parity)  # (X/2,Y,Z,T,4)
         out = 0.0
         for mu in range(DIRS):
-            fwd = jnp.einsum("...ab,...b->...a", u_t[mu],
+            fwd = dots.einsum("...ab,...b->...a", u_t[mu],
                              eo_pack.gather_plus(psi_s, mu, s_t))
             u_m = eo_pack.gather_minus(u_s[mu], mu, s_t)
-            bwd = jnp.einsum("...ba,...b->...a", jnp.conj(u_m),
+            bwd = dots.einsum("...ba,...b->...a", jnp.conj(u_m),
                              eo_pack.gather_minus(psi_s, mu, s_t))
             out = out + 0.5 * eta_t[..., mu, None].astype(psi_s.dtype) * (fwd - bwd)
         return out

@@ -1,6 +1,6 @@
 """Wilson Dirac operator (optionally clover-improved).
 
-TPU-native counterpart of LatticeDiracOperators.jl's Wilson operator
+Counterpart of LatticeDiracOperators.jl's Wilson operator
 (SURVEY.md 2.4.2; built from params kappa, r, boundarycondition at
 /root/reference/src/system/universe.jl:111-137). Hopping form:
 
@@ -27,7 +27,7 @@ import numpy as np
 
 from latticeqcd_tpu.ops.dirac import eo_pack, gammas
 
-from latticeqcd_tpu.ops import rolls
+from latticeqcd_tpu.ops import dots, rolls
 
 DIRS = 4
 
@@ -82,12 +82,12 @@ class WilsonDirac:
         hop = 0.0
         for mu in range(DIRS):
             umu = u[mu]
-            fwd = jnp.einsum("...ab,...sb->...sa", umu, _shift(psi, mu, +1))
-            bwd = jnp.einsum(
+            fwd = dots.einsum("...ab,...sb->...sa", umu, _shift(psi, mu, +1))
+            bwd = dots.einsum(
                 "...ba,...sb->...sa", jnp.conj(_shift(umu, mu, -1)), _shift(psi, mu, -1)
             )
-            hop = hop + jnp.einsum("st,...tc->...sc", pm[mu], fwd)
-            hop = hop + jnp.einsum("st,...tc->...sc", pp[mu], bwd)
+            hop = hop + dots.einsum("st,...tc->...sc", pm[mu], fwd)
+            hop = hop + dots.einsum("st,...tc->...sc", pp[mu], bwd)
         return hop
 
     def _hop_half_spinor(self, u, psi):
@@ -98,15 +98,15 @@ class WilsonDirac:
         for mu in range(DIRS):
             umu = u[mu]
             # forward: 2 Vm [ U (Vm^dag psi)(x+mu) ]
-            half = jnp.einsum("sh,...sc->...hc", jnp.conj(vm[mu]), _shift(psi, mu, +1))
-            half = jnp.einsum("...ab,...hb->...ha", umu, half)
-            hop = hop + 2.0 * jnp.einsum("sh,...hc->...sc", vm[mu], half)
+            half = dots.einsum("sh,...sc->...hc", jnp.conj(vm[mu]), _shift(psi, mu, +1))
+            half = dots.einsum("...ab,...hb->...ha", umu, half)
+            hop = hop + 2.0 * dots.einsum("sh,...hc->...sc", vm[mu], half)
             # backward: 2 Vp [ U^dag(x-mu) (Vp^dag psi)(x-mu) ]
-            half = jnp.einsum("sh,...sc->...hc", jnp.conj(vp[mu]), _shift(psi, mu, -1))
-            half = jnp.einsum(
+            half = dots.einsum("sh,...sc->...hc", jnp.conj(vp[mu]), _shift(psi, mu, -1))
+            half = dots.einsum(
                 "...ba,...hb->...ha", jnp.conj(_shift(umu, mu, -1)), half
             )
-            hop = hop + 2.0 * jnp.einsum("sh,...hc->...sc", vp[mu], half)
+            hop = hop + 2.0 * dots.einsum("sh,...hc->...sc", vp[mu], half)
         return hop
 
     def apply_dagger(self, u: jnp.ndarray, psi: jnp.ndarray) -> jnp.ndarray:
@@ -142,27 +142,27 @@ class WilsonDirac:
             vm = jnp.asarray(vm, dtype=psi_s.dtype)
             vp = jnp.asarray(vp, dtype=psi_s.dtype)
             for mu in range(DIRS):
-                half = jnp.einsum("sh,...sc->...hc", jnp.conj(vm[mu]),
+                half = dots.einsum("sh,...sc->...hc", jnp.conj(vm[mu]),
                                   eo_pack.gather_plus(psi_s, mu, s_t))
-                half = jnp.einsum("...ab,...hb->...ha", u_t[mu], half)
-                hop = hop + 2.0 * jnp.einsum("sh,...hc->...sc", vm[mu], half)
-                half = jnp.einsum("sh,...sc->...hc", jnp.conj(vp[mu]),
+                half = dots.einsum("...ab,...hb->...ha", u_t[mu], half)
+                hop = hop + 2.0 * dots.einsum("sh,...hc->...sc", vm[mu], half)
+                half = dots.einsum("sh,...sc->...hc", jnp.conj(vp[mu]),
                                   eo_pack.gather_minus(psi_s, mu, s_t))
                 u_m = eo_pack.gather_minus(u_s[mu], mu, s_t)
-                half = jnp.einsum("...ba,...hb->...ha", jnp.conj(u_m), half)
-                hop = hop + 2.0 * jnp.einsum("sh,...hc->...sc", vp[mu], half)
+                half = dots.einsum("...ba,...hb->...ha", jnp.conj(u_m), half)
+                hop = hop + 2.0 * dots.einsum("sh,...hc->...sc", vp[mu], half)
             return hop
         pm, pp = gammas.projectors(self.r)
         pm = jnp.asarray(pm, dtype=psi_s.dtype)
         pp = jnp.asarray(pp, dtype=psi_s.dtype)
         for mu in range(DIRS):
-            fwd = jnp.einsum("...ab,...sb->...sa", u_t[mu],
+            fwd = dots.einsum("...ab,...sb->...sa", u_t[mu],
                              eo_pack.gather_plus(psi_s, mu, s_t))
             u_m = eo_pack.gather_minus(u_s[mu], mu, s_t)
-            bwd = jnp.einsum("...ba,...sb->...sa", jnp.conj(u_m),
+            bwd = dots.einsum("...ba,...sb->...sa", jnp.conj(u_m),
                              eo_pack.gather_minus(psi_s, mu, s_t))
-            hop = hop + jnp.einsum("st,...tc->...sc", pm[mu], fwd)
-            hop = hop + jnp.einsum("st,...tc->...sc", pp[mu], bwd)
+            hop = hop + dots.einsum("st,...tc->...sc", pm[mu], fwd)
+            hop = hop + dots.einsum("st,...tc->...sc", pp[mu], bwd)
         return hop
 
     def apply_dhat(self, u_eo, x_e: jnp.ndarray) -> jnp.ndarray:
@@ -217,7 +217,7 @@ class WilsonDirac:
                     clov = clov + evaluate_line(u, line)
                 f = sun.traceless_antihermitian(clov) / 4.0
                 smat = jnp.asarray(sigma[mu, nu], dtype=u.dtype)
-                t = t + jnp.einsum("st,...ab->...satb", smat, f)
+                t = t + dots.einsum("st,...ab->...satb", smat, f)
         eye = jnp.eye(4 * nc, dtype=u.dtype).reshape(4, nc, 4, nc)
         return eye - (self.csw * self.kappa / 2.0) * t
 
@@ -241,7 +241,7 @@ class WilsonDirac:
     @staticmethod
     def site_apply(a, x):
         """y[s,a] = A[s,a,t,b] x[t,b] per site."""
-        return jnp.einsum("...satb,...tb->...sa", a, x)
+        return dots.einsum("...satb,...tb->...sa", a, x)
 
     def apply_dhat_clover(self, u_eo, a_e, ainv_o, x_e):
         """Dhat x_e = A_ee x_e - k^2 H_eo A_oo^-1 H_oe x_e."""
@@ -255,9 +255,9 @@ class WilsonDirac:
         """Dhat^dag = g5 Dhat g5 (clover and hopping are both
         gamma5-hermitian, so the Schur complement inherits it)."""
         g5 = jnp.asarray(gammas.GAMMA5, dtype=x_e.dtype)
-        gx = jnp.einsum("st,...tc->...sc", g5, x_e)
+        gx = dots.einsum("st,...tc->...sc", g5, x_e)
         y = self.apply_dhat_clover(u_eo, a_e, ainv_o, gx)
-        return jnp.einsum("st,...tc->...sc", g5, y)
+        return dots.einsum("st,...tc->...sc", g5, y)
 
     # ------------------------------------------------------------------
     def _clover_term(self, u, psi):
@@ -282,8 +282,8 @@ class WilsonDirac:
                     clov = clov + evaluate_line(u, line)
                 f = sun.traceless_antihermitian(clov) / 4.0  # (1/8)(C - C^dag) w/ 4 leaves
                 smat = jnp.asarray(sigma[mu, nu], dtype=psi.dtype)
-                fpsi = jnp.einsum("...ab,...sb->...sa", f, psi)
-                acc = acc + jnp.einsum("st,...tc->...sc", smat, fpsi)
+                fpsi = dots.einsum("...ab,...sb->...sa", f, psi)
+                acc = acc + dots.einsum("st,...tc->...sc", smat, fpsi)
         return -(self.csw * self.kappa / 2.0) * acc
 
 

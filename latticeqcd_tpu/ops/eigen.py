@@ -17,11 +17,11 @@ and ~1000 applications for 1% accuracy. The whole m-step recurrence is
 a single jitted fori_loop (static shapes, no host round-trips); only
 the m x m tridiagonal eigenproblem runs on host.
 
-TPU notes: the basis (m, *field) lives in HBM — at 16^3x32 packed-even
-staggered c64 that is m x 1.5 MB, negligible. Full two-pass
+Memory: the basis (m, *field) lives in device memory — at 16^3x32
+packed-even staggered c64 that is m x 1.5 MB, negligible. Full two-pass
 reorthogonalization keeps the recurrence stable in complex64 (classical
 Gram-Schmidt twice == "twice is enough", Parlett); each pass is one
-einsum over the stacked basis, which XLA maps onto the MXU.
+einsum over the stacked basis.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from latticeqcd_tpu.ops import dots
 
 
 def _inner(a, b):
@@ -73,8 +75,8 @@ def _lanczos_basis(matvec, v0, m: int):
         alpha = jnp.real(_inner(v, w))
         alphas = alphas.at[j].set(alpha)
         for _ in range(2):
-            coef = jnp.einsum("k...,...->k", jnp.conj(basis), w)
-            w = w - jnp.tensordot(coef, basis, axes=(0, 0))
+            coef = dots.einsum("k...,...->k", jnp.conj(basis), w)
+            w = w - dots.einsum("k,k...->...", coef, basis)
         beta = jnp.sqrt(jnp.real(_inner(w, w)))
         betas = betas.at[j].set(beta)
         ok = beta > jnp.asarray(1e-30, beta.dtype)
@@ -107,7 +109,7 @@ def ritz_pairs_low(matvec, v0, m: int, k: int):
     t = jnp.diag(diag) + jnp.diag(off, 1) + jnp.diag(off, -1)
     w, y = jnp.linalg.eigh(t)  # ascending
     yk = y[:, :k].astype(basis.dtype)
-    vecs = jnp.einsum("jk,j...->k...", yk, basis)
+    vecs = dots.einsum("jk,j...->k...", yk, basis)
     return w[:k], vecs
 
 
@@ -118,8 +120,8 @@ def deflation_guess(evals, vecs, b):
     subsequent CG corrects any Ritz imprecision — the guess can only
     be suboptimal, never wrong. Huge masked evals (ritz_pairs_low
     breakdown padding) divide to ~0 and contribute nothing."""
-    c = jnp.einsum("k...,n...->nk", jnp.conj(vecs), b)
-    return jnp.einsum("nk,k...->n...", c / evals[None, :].astype(c.dtype), vecs)
+    c = dots.einsum("k...,n...->nk", jnp.conj(vecs), b)
+    return dots.einsum("nk,k...->n...", c / evals[None, :].astype(c.dtype), vecs)
 
 
 def extreme_eigs(matvec, v0, m: int = 32, breakdown_tol: float = 1e-10):

@@ -11,13 +11,13 @@ to run ONLY the integrator state (U, H) and its updates in f64 while
 every expensive term (gauge/fermion forces, CG solves, action
 evaluations, the links handed to the next trajectory) stays complex64.
 
-Why real pairs instead of complex128: complex128 does not compile on
-the target TPU (CLAUDE.md, verified empirically), but real float64
-does. A `PairField` carries (re, im) float64 arrays plus the complex
-dtype it lowers back to, registered as a pytree so it flows through
-`jax.jit` / `lax.fori_loop` carries unchanged. All pair arithmetic
-(matmul, scale, add, the exponential map) is expressed in real f64
-ops, so one code path serves CPU tests and the TPU production backend.
+Representation: a `PairField` carries (re, im) float64 arrays plus
+the complex dtype it lowers back to, registered as a pytree so it
+flows through `jax.jit` / `lax.fori_loop` carries unchanged. All pair
+arithmetic (matmul, scale, add, the exponential map) is expressed in
+real f64 ops and no complex128 array is ever built. Whether holding
+the state as complex128 instead is as fast and as simple is an open
+measurement (ROADMAP.md).
 
 Requires jax_enable_x64 (else the "f64" pair silently truncates to
 f32 and buys nothing) — callers must check `require_x64()`.
@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from latticeqcd_tpu.ops import dots
 
 
 @jax.tree_util.register_pytree_node_class
@@ -106,7 +108,7 @@ def lower(p: PairField) -> jnp.ndarray:
     """f64 pair -> the original complex dtype.
 
     Builds complex64 via lax.complex on downcast f32 parts — never
-    materializing a complex128 array, which the TPU cannot compile.
+    materializing a complex128 array.
     """
     if p.cdtype == jnp.complex64:
         return jax.lax.complex(p.re.astype(jnp.float32), p.im.astype(jnp.float32))
@@ -121,8 +123,8 @@ def as_complex(x):
 
 def matmul(a: PairField, b: PairField) -> PairField:
     """Batched complex matmul in real-pair arithmetic (4 real matmuls)."""
-    re = jnp.matmul(a.re, b.re) - jnp.matmul(a.im, b.im)
-    im = jnp.matmul(a.re, b.im) + jnp.matmul(a.im, b.re)
+    re = dots.matmul(a.re, b.re) - dots.matmul(a.im, b.im)
+    im = dots.matmul(a.re, b.im) + dots.matmul(a.im, b.re)
     return PairField(re, im, a.cdtype)
 
 
@@ -167,7 +169,7 @@ def _expi_su3_ch(h: PairField, eps) -> PairField:
     wall overhead on a cheap-solve dynamical workload (PERF.md
     mixed-MD cost table). The complex scalars f0..f2 and e^{2iu},
     e^{-iu} live as (re, im) f64 pairs; no complex128 array is ever
-    built, keeping this compilable on the TPU."""
+    built."""
     qr, qi = eps * h.re, eps * h.im
     q2 = matmul(PairField(qr, qi, h.cdtype), PairField(qr, qi, h.cdtype))
     # det(Q) is real for hermitian Q; expand along the first row, in

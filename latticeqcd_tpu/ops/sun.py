@@ -5,8 +5,7 @@ All functions operate on arrays whose *last two* axes are the color
 axes. This replaces the per-link mutable matrix objects of the
 reference's Gaugefields.jl (link algebra surface reconstructed at
 SURVEY.md section 2.4.1: exptU!, Traceless_antihermitian!, mul!, tr)
-with pure batched jnp ops that XLA fuses and vectorizes on the TPU
-VPU.
+with pure batched jnp ops that XLA fuses and vectorizes.
 
 Conventions
 -----------
@@ -26,6 +25,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from latticeqcd_tpu.ops import dots
+
 
 def dagger(m: jnp.ndarray) -> jnp.ndarray:
     """Hermitian conjugate on the last two axes."""
@@ -34,7 +35,7 @@ def dagger(m: jnp.ndarray) -> jnp.ndarray:
 
 def mul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched matrix multiply on the last two axes."""
-    return jnp.matmul(a, b)
+    return dots.matmul(a, b)
 
 
 def trace(m: jnp.ndarray) -> jnp.ndarray:
@@ -229,10 +230,10 @@ def _expm_taylor_ss(x: jnp.ndarray) -> jnp.ndarray:
 def expi_hermitian(h: jnp.ndarray, eps) -> jnp.ndarray:
     """exp(i * eps * H) for traceless hermitian H (batched).
 
-    The TPU-native counterpart of exptU! (SURVEY.md 2.4.1,
+    The counterpart of exptU! (SURVEY.md 2.4.1,
     /root/reference/src/md/AbstractMD.jl:90). su(2) uses the exact
-    Pauli formula; other NC use scaling-and-squaring (XLA-fused
-    matmul chain on the VPU/MXU).
+    Pauli formula; other NC use scaling-and-squaring (an XLA-fused
+    matmul chain).
     """
     if h.shape[-1] == 2:
         return _expm_su2(1j * eps * h)
@@ -286,7 +287,7 @@ def reunitarize(u: jnp.ndarray) -> jnp.ndarray:
     """Project a near-SU(N) field back onto SU(N) (polar-like, via Newton).
 
     Uses the Newton iteration for the unitary polar factor
-    W <- (W + (W†)^-1)/2 — but to stay inverse-free on TPU we use the
+    W <- (W + (W†)^-1)/2 — but to stay inverse-free we use the
     Higham-style iteration W <- W (3 I - W† W)/2, valid for small
     defects, followed by a det-phase fix.
     """

@@ -1,6 +1,6 @@
 """Symbolic Wilson-line algebra.
 
-TPU-native mirror of Wilsonloop.jl (SURVEY.md 2.4.4): a path is a
+Mirror of Wilsonloop.jl (SURVEY.md 2.4.4): a path is a
 tuple of (direction, signed length) segments; loops are evaluated
 generically by multiplying rolled link fields, and the *path
 derivative* (staple sum) falls out symbolically. This one evaluator

@@ -1,13 +1,13 @@
 """Device-mesh construction and lattice shardings.
 
-TPU-native replacement for the reference's MPI domain decomposition
-(SURVEY.md 2.5: 4D process grid `PEs`, halo width Nwing, rank-aware
-fields; /root/reference/src/mpi/mpimodule.jl:10-38, mpirun.jl:14-25).
-The lattice axes are sharded over a jax.sharding.Mesh with axis
-names x/y/z/t; all field ops are written shift-based (jnp.roll), so
-under jit the XLA SPMD partitioner inserts the halo
-collective-permutes over ICI and turns global sums into psums — no
-explicit send/recv anywhere. The Metropolis decision uses one
+Replacement for the reference's MPI domain decomposition (SURVEY.md
+2.5: 4D process grid `PEs`, halo width Nwing, rank-aware fields;
+reference src/mpi/mpimodule.jl:10-38, mpirun.jl:14-25). The
+lattice axes are sharded over a jax.sharding.Mesh with axis names
+x/y/z/t; all field ops are written shift-based (jnp.roll), so under
+jit the XLA SPMD partitioner inserts the halo collective-permutes
+(NCCL over NVLink between the GPUs of a host) and turns global sums
+into psums — no explicit send/recv anywhere. The Metropolis decision uses one
 replicated PRNG key, matching the reference's rank-replicated rand()
 (standardHMC.jl:81).
 
@@ -97,10 +97,11 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 # ---------------------------------------------------------------------------
 # Multi-host (multi-process) support — the mpirun.jl analog
-# (/root/reference/src/mpirun.jl:14-25). One python process per host;
-# jax.distributed stitches all hosts' chips into one global device
-# list, the Mesh spans them, and the jitted trajectory step runs SPMD
-# with XLA collectives riding ICI within a host / DCN across hosts.
+# (reference src/mpirun.jl:14-25). One python process per host
+# drives all of that host's GPUs; jax.distributed stitches the hosts'
+# devices into one global device list, the Mesh spans them, and the
+# jitted trajectory step runs SPMD with NCCL collectives (NVLink within
+# a host, the cluster network across hosts).
 # ---------------------------------------------------------------------------
 
 
@@ -109,10 +110,10 @@ def initialize_multihost(coordinator: Optional[str] = None,
                          process_id: Optional[int] = None) -> None:
     """Initialize the jax distributed runtime (idempotent).
 
-    On TPU pods all three arguments are auto-detected from the pod
-    environment; on CPU/GPU clusters pass coordinator="host:port",
-    num_processes and process_id explicitly (the MPI_COMM_WORLD
-    rank/size analog, mpi/mpimodule.jl:4-8)."""
+    Pass coordinator="host:port", num_processes and process_id
+    explicitly (the MPI_COMM_WORLD rank/size analog,
+    mpi/mpimodule.jl:4-8). Called with none of them it stays a single
+    process."""
     # NB: do not probe jax.process_count() here — it initializes the XLA
     # backend, after which jax.distributed.initialize refuses to run.
     try:
@@ -132,7 +133,7 @@ def initialize_multihost(coordinator: Optional[str] = None,
     try:
         jax.distributed.initialize(**kwargs)
     except (ValueError, RuntimeError) as e:
-        # single-process run (no pod env, no explicit coordinator)
+        # single-process run (no explicit coordinator)
         if kwargs:
             raise
         import sys

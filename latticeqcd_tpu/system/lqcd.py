@@ -1,6 +1,6 @@
 """The simulation driver: trajectory loop, saving, measurements, flow.
 
-TPU-native mirror of run_LQCD_file (SURVEY.md 3.1;
+Mirror of run_LQCD_file (SURVEY.md 3.1;
 /root/reference/src/system/lqcd.jl:43-195): build Params -> Univ ->
 updater -> gradient flow -> measurement sets, then loop
 initialtrj..Nsteps: update! -> save -> measure -> flowed
@@ -142,9 +142,12 @@ def run_lqcd_params(p: Params, make_dirs: bool = True, dtype=jnp.complex128, sha
         if "itrj" in ck:
             p.initialtrj = int(ck["itrj"]) + 1
     if shard_mesh is not None:
-        from latticeqcd_tpu.parallel import shard_links
+        from latticeqcd_tpu.parallel.mesh import replicated, shard_links
 
         univ.u = shard_links(univ.u, shard_mesh)
+        # the key as the trajectory step returns it (replicated over the
+        # mesh), so the second trajectory does not recompile the step
+        key = jax.device_put(key, replicated(shard_mesh))
     vp = univ.verbose_print
 
     vp.println_verbose_level1("# ", os.getcwd())

@@ -1,6 +1,6 @@
 """SU(N) heatbath + overrelaxation via SU(2)-subgroup updates.
 
-TPU-native counterpart of Gaugefields.jl's Heatbath / Heatbath_update
+Counterpart of Gaugefields.jl's Heatbath / Heatbath_update
 kernels (SURVEY.md 2.4.1; wrapper at
 /root/reference/src/updates/heatbath.jl). SU(N) links are updated
 through all N(N-1)/2 SU(2) subgroups with the Kennedy-Pendleton
@@ -132,8 +132,7 @@ def _kp_sample_a0(key, alpha, mask, iteration_max):
     trip count with a done-mask: the hybrid keeps per-try acceptance
     O(1) at every coupling (see _KP_CREUTZ_SWITCH), so 48 masked tries
     push the failure probability below ~1e-7/site, and a fixed
-    fori_loop (unlike while_loop) may nest inside the color loop on
-    the TPU backend.
+    fori_loop keeps the trip count static inside the color loop.
 
     Returns (a0, accepted, key). Sites whose tries are exhausted come
     back accepted=False and MUST be skipped by the caller: leaving the

@@ -5,7 +5,7 @@ The reference advertises self-learning HMC as a capability
 (/root/reference/src/system/wizard.jl:340-349), but the post-1.0
 update factory never wires it (SURVEY.md 2.2 "SLHMC updater (dead)"),
 so `update_method = "SLHMC"` errors there.  This module provides a
-*working* TPU-native implementation of both algorithms, with the
+*working* implementation of both algorithms, with the
 semantics of the reference's archived versions:
 
 * **SLHMC** (/root/reference/src/updates/SLHMC.jl:51-98): molecular
@@ -13,9 +13,8 @@ semantics of the reference's archived versions:
   S_eff(U) = sum_i beta_eff_i * l_i(U) over a loop basis, while the
   Metropolis test uses the TRUE action (gauge + pseudofermion).  The
   MD trajectory is therefore purely gluonic — no CG solves inside the
-  integrator loop — which is exactly the shape the TPU backend wants
-  (no while_loop nested in the MD loop; solver calls happen only at
-  the trajectory endpoints).  Exactness: the leapfrog under S_eff is
+  integrator loop (no while_loop nested in the MD loop; solver calls
+  happen only at the trajectory endpoints).  Exactness: the leapfrog under S_eff is
   reversible and measure-preserving, so accepting with
   exp(H_true(old) - H_true(new)) satisfies detailed balance with
   respect to exp(-S_true) for ANY S_eff; the learning only affects
@@ -382,7 +381,9 @@ def dense_logdet_fermi_action(dirac, psi_shape, weight: float, dtype=jnp.complex
     def s_f(u):
         cols = jax.vmap(lambda v: dirac.apply(u, v.reshape(psi_shape)).reshape(dim))(eye)
         d_mat = jnp.transpose(cols)  # column j = D e_j
-        _, logdet = jnp.linalg.slogdet(sun.dagger(d_mat) @ d_mat)
+        # a dense (dim x dim) product: a real GEMM, at full precision
+        gram = jnp.matmul(sun.dagger(d_mat), d_mat, precision=jax.lax.Precision.HIGHEST)
+        _, logdet = jnp.linalg.slogdet(gram)
         return -weight * jnp.real(logdet)
 
     return s_f

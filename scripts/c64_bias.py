@@ -1,6 +1,6 @@
 """complex64-vs-complex128 sampling-bias evidence (VERDICT r2 weak #6).
 
-The TPU path runs complex64 with the CG tolerance clamped to a
+The complex64 path runs with the CG tolerance clamped to a
 relative |r|^2 of 2.5e-13 (ops/solvers.py _effective_eps), while the
 CPU/f64 path honors the reference's eps_CG = 1e-19. This script
 quantifies what that clamp does to the sampled measure:

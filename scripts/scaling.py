@@ -47,11 +47,11 @@ def main():
 
     import jax
 
+    from latticeqcd_tpu.utils.compile_cache import configure_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    configure_compile_cache()
 
     import jax.numpy as jnp
 

@@ -221,8 +221,8 @@ def test_chain_sharded_ensemble_dp_has_zero_collectives():
     """Ensemble data parallelism: step_batched with the CHAIN axis
     sharded over all devices (one independent Markov chain per device)
     must compile to ZERO collectives of any kind — chains never
-    communicate, so ensemble throughput scales linearly over ICI with
-    no traffic at all (the third scaling axis next to 4D domain
+    communicate, so ensemble throughput scales linearly over devices
+    with no traffic at all (the third scaling axis next to 4D domain
     decomposition and even-odd; measured 2026-08-21: empty collective
     inventory, 8 chains / 8 virtual devices)."""
     from jax.sharding import Mesh

@@ -33,7 +33,7 @@ WRAPPER = textwrap.dedent(
     import jax
     jax.config.update("jax_platforms", "cpu")
     from latticeqcd_tpu import multirun
-    sys.exit(multirun.main(sys.argv[1:]))
+    sys.exit(multirun.main(sys.argv[1:] + ["--cpu"]))
     """
 )
 

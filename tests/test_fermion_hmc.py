@@ -275,16 +275,10 @@ def test_hasenbusch_sw_split_staged_matches_fused():
 
 def test_c64_dynamical_step_preserves_dtype_under_x64():
     """Strongly-typed NumPy scalars (np.sqrt(2.0)) used to promote
-    complex64 fields to complex128 under x64 mode — invisible on TPU
-    (x64 off) and in the f64 test suite, but it silently doubled memory
-    and ran f64 math in mixed CPU runs (found by scripts/c64_bias.py)."""
-    u = load_bridge_text(
-        os.path.join(
-            "/root/reference/test",
-            "confs_HMC_L04040404_beta5.7_Wilson_kappa0.141139/conf_00000100.ildg.txt",
-        ),
-        LAT, 3, dtype=jnp.complex64,
-    )
+    complex64 fields to complex128 under x64 mode — invisible with x64
+    off and in the f64 test suite, but it silently doubled memory and
+    ran f64 math in complex64 runs (found by scripts/c64_bias.py)."""
+    u = fields.hot_start(LAT, 3, seed=100, dtype=jnp.complex64)
     from latticeqcd_tpu.ops import sun
     from latticeqcd_tpu.ops.dirac.wilson import WilsonDirac
     from latticeqcd_tpu.ops.fermion_action import WilsonFermiAction

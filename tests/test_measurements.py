@@ -119,7 +119,7 @@ def test_pion_correlator_batched_path_matches_sequential(monkeypatch):
     """The accelerator (batched cg_multi) dispatch of cg_multi_auto is
     exercised on the CPU suite via the LQCD_FORCE_SOLVE_MODE hook and
     pinned against the CPU-default sequential path — this is the
-    integration-level guarantee that the TPU production solve path
+    integration-level guarantee that the accelerator solve path
     computes the same measurement (unique lattice shape: the hook is
     read at trace time)."""
     import os

@@ -85,7 +85,7 @@ def test_sharded_heatbath_matches_single(mesh):
 
 # ---------------------------------------------------------------------------
 # Multi-host glue (single-process semantics; the cross-host collective
-# path is exercised on real pods via latticeqcd_tpu.multirun)
+# path is exercised by tests/test_distributed.py)
 # ---------------------------------------------------------------------------
 
 
@@ -98,7 +98,7 @@ def test_multihost_helpers_single_process(mesh):
         to_host_global,
     )
 
-    # no coordinator + no pod env -> stays single-process, no raise
+    # no coordinator -> stays single-process, no raise
     initialize_multihost()
     assert get_nprocs() == 1
     assert get_myrank() == 0
@@ -139,5 +139,5 @@ MDsteps = 4
 dtau = 0.25
 """
     )
-    rc = multirun.main([str(toml), "1", "1", "2", "4"])
+    rc = multirun.main([str(toml), "1", "1", "2", "4", "--cpu"])
     assert rc == 0
